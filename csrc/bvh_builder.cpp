@@ -1,13 +1,13 @@
-// Native SAH BVH builder for clive2-tpu.
+// Native SAH BVH builder for clive2.
 //
 // Host-side replacement for the numpy full-sweep SAH build
-// (clive2_tpu/bvh/build.py) — same algorithm, same flat output layout
+// (clive2/bvh/build.py) — same algorithm, same flat output layout
 // (DFS-preorder threaded tree with miss links), ~50x faster on the
 // single-core hosts this deployment runs on.  The reference kept its
 // builder in numpy+numba (reference bvh.py); here the builder is the
 // framework's native runtime component.
 //
-// Exposed via a C ABI consumed with ctypes (clive2_tpu/bvh/native.py).
+// Exposed via a C ABI consumed with ctypes (clive2/bvh/native.py).
 
 #include <algorithm>
 #include <cstdint>

@@ -27,11 +27,11 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-import clive2_tpu as c2
-from clive2_tpu.constants import MAX_BOUNCES
-from clive2_tpu.integrator.connect import connect_paths
-from clive2_tpu.integrator.render import render_sample  # noqa: F401
-from clive2_tpu.integrator import trace as T
+import clive2 as c2
+from clive2.constants import MAX_BOUNCES
+from clive2.integrator.connect import connect_paths
+from clive2.integrator.render import render_sample  # noqa: F401
+from clive2.integrator import trace as T
 
 
 def per_class_uni(path, k, height, width):

@@ -3,7 +3,7 @@
 The reference presets expect ../resources/teapot.obj and the Stanford
 dragon PLYs (scene.py:159-200 in the reference); those files are not in
 this image.  The teapot is generated EXACTLY (the 32-patch Newell data
-is public domain, clive2_tpu/models/teapot.py — 6,320 triangles at the
+is public domain, clive2/models/teapot.py — 6,320 triangles at the
 classic tessellation, the same mesh the reference's teapot.obj holds);
 the dragons are procedural stand-ins carrying the REAL Stanford triangle
 counts per resolution so benchmarks measure the workloads they claim.
@@ -16,8 +16,8 @@ sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
 
 import numpy as np
 
-from clive2_tpu.load import write_obj, write_ply
-from clive2_tpu.models import displaced_blob_exact, utah_teapot
+from clive2.load import write_obj, write_ply
+from clive2.models import displaced_blob_exact, utah_teapot
 
 RES = os.environ.get(
     "CLIVE2_RESOURCES",

@@ -3,15 +3,15 @@
 The north star's correctness clause is "<1e-3 RMSE vs Metal reference
 images at equal spp" (BASELINE.json).  No Apple GPU exists in this
 environment, and the reference repo contains NO rendered image — its
-README embeds an external imgur URL (/root/reference/README.md:16),
+README embeds an external imgur URL (reference README.md:16),
 unfetchable with zero egress — so a direct RMSE against the published
 render is physically impossible here.  This script produces the closest
 obtainable artifact: the reference's exact default still workload
 (teapots, 1280x720, 15 samples — reference render.py:14-18) rendered on
-the TPU under BOTH estimators:
+the GPU under BOTH estimators:
 
-  * production (mega-batched casts, any-hit shadow semantics, TPU MIS
-    chain layout), and
+  * production (mega-batched casts, any-hit shadow semantics, corrected
+    MIS chain), and
   * CLIVE2_REFERENCE_MIS=1 (the reference's estimator verbatim —
     pixel-parity path, golden-pinned by tests/test_golden_reference.py)
 
@@ -19,7 +19,7 @@ and reports tone-mapped per-channel stats + RMSE between them.  When a
 Metal render of the same scene/spp becomes obtainable, RMSE vs BOTH
 images closes the clause with scripts/compare_images.py.
 
-Run on the chip (REFERENCE_MIS is read at import):
+Run on the GPU (REFERENCE_MIS is read at import):
     python scripts/parity_render.py            # production estimator
     CLIVE2_REFERENCE_MIS=1 python scripts/parity_render.py
 Then: python scripts/parity_render.py --report
@@ -34,25 +34,24 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 import numpy as np
 
 OUT = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
-                   "docs", "images")
+                   "output", "parity")
 W, H, SPP = 1280, 720, 15
 
 
 def _write_png(raw, path):
     """camera.tone_map already returns uint8 BGR 0-255 — write it
     directly (flipped to RGB)."""
-    from clive2_tpu.camera import tone_map
-    from PIL import Image
+    from clive2.apps.render import save_png
+    from clive2.camera import tone_map
 
-    img = np.asarray(tone_map(raw))          # uint8 BGR
-    Image.fromarray(img[..., ::-1]).save(path)
+    save_png(path, np.asarray(tone_map(raw)))       # uint8 BGR
 
 
 def render():
     import jax
 
-    import clive2_tpu as c2
-    from clive2_tpu.camera import tone_map
+    import clive2 as c2
+    from clive2.camera import tone_map
 
     refmis = os.environ.get("CLIVE2_REFERENCE_MIS", "0") == "1"
     tag = "refmis" if refmis else "production"

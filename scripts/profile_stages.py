@@ -17,17 +17,16 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-import clive2_tpu as c2
-from clive2_tpu.constants import MAX_BOUNCES
-from clive2_tpu.integrator import trace as T
-from clive2_tpu.integrator.connect import (
+import clive2 as c2
+from clive2.constants import MAX_BOUNCES
+from clive2.integrator import trace as T
+from clive2.integrator.connect import (
     connection_pairs, connect_paths, precompute_mis,
 )
-from clive2_tpu.integrator.render import render_sample
-from clive2_tpu.ops.intersect import intersect_scene
-from clive2_tpu.ops.sampling import dot, normalize
-from clive2_tpu.ops.gather import gather_rows
-from clive2_tpu.constants import DELTA
+from clive2.integrator.render import render_sample
+from clive2.ops.intersect import intersect_scene
+from clive2.ops.sampling import dot, normalize
+from clive2.constants import DELTA
 
 
 def subpaths(key, scene_data, width, height):
@@ -73,8 +72,8 @@ def casts_only(cam_path, light_path, scene, width, height):
         lv = take_d(LV, s - 1)
         cv = take_d(CV, t - 1)
         lens_ok = (t <= cam_len) & (s <= light_len)
-        l_spec = gather_rows(mat["type"], lv["material"]) > 0
-        c_spec = gather_rows(mat["type"], cv["material"]) > 0
+        l_spec = jnp.take(mat["type"], lv["material"], axis=0) > 0
+        c_spec = jnp.take(mat["type"], cv["material"], axis=0) > 0
         proj_dir = normalize(cam["focal_point"][None, :] - lv["origin"])
         t1_ok = ~l_spec & (dot(proj_dir, cam["direction"][None, :]) <= 0.0)
         dir_l_to_c = normalize(cv["origin"] - lv["origin"])
@@ -91,10 +90,10 @@ def casts_only(cam_path, light_path, scene, width, height):
                   cam["direction"][None, :])
         d_t1 = jnp.where(den < -1e-12, num / den, jnp.inf)
         # mirror production stage A: any-hit casts capped below the
-        # target, per-path auto sort (see integrator/connect.py)
+        # target (see integrator/connect.py)
         t_max = jnp.where(is_t1, d_t1, d_gen) * (1.0 - 1e-3)
         hit_i, hit_t, _, _ = intersect_scene(
-            lv["origin"], direction, scene, active=active, sort=None,
+            lv["origin"], direction, scene, active=active,
             t_max=t_max, any_hit=True)
         return hit_i, hit_t, active
 

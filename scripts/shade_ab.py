@@ -28,9 +28,9 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from clive2_tpu.integrator.trace import _select_bounce
-from clive2_tpu.ops import bsdf
-from clive2_tpu.ops.sampling import ggx_sample, normalize
+from clive2.integrator.trace import _select_bounce
+from clive2.ops import bsdf
+from clive2.ops.sampling import ggx_sample, normalize
 
 
 def make_inputs(n, key):

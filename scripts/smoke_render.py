@@ -8,7 +8,7 @@ if "--cpu" in sys.argv:
 
 import numpy as np
 
-import clive2_tpu as c2
+import clive2 as c2
 
 size = int(next((a.split("=")[1] for a in sys.argv if a.startswith("--size=")), 64))
 spp = int(next((a.split("=")[1] for a in sys.argv if a.startswith("--spp=")), 2))
@@ -38,10 +38,9 @@ print("unidirectional:  min %.4f mean %.4f max %.4f, nonzero %.1f%%" % (
     uni.min(), uni.mean(), uni.max(), 100 * (uni.sum(axis=2) > 0).mean()))
 
 img = r.image  # BGR uint8
-from PIL import Image
+from clive2.apps.render import save_png  # noqa: E402
 
-os.makedirs("output", exist_ok=True)
-Image.fromarray(img[:, :, ::-1]).save("output/smoke_bdpt.png")
-Image.fromarray(r.unidirectional_image[:, :, ::-1]).save("output/smoke_uni.png")
+save_png("output/smoke_bdpt.png", img)
+save_png("output/smoke_uni.png", r.unidirectional_image)
 print("wrote output/smoke_bdpt.png, output/smoke_uni.png")
 print(f"total {time.time() - t0:.1f}s")

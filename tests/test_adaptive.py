@@ -13,8 +13,8 @@ import jax
 import numpy as np
 import pytest
 
-import clive2_tpu as c2
-from clive2_tpu.renderer import Renderer
+import clive2 as c2
+from clive2.renderer import Renderer
 
 pytestmark = pytest.mark.slow  # minutes-scale; default gate skips (-m slow)
 

@@ -4,13 +4,11 @@ import glob
 import os
 
 import numpy as np
-import pytest
 
-pytestmark = pytest.mark.slow  # minutes-scale; default gate skips (-m slow)
 
 
 def test_render_cli(tmp_path):
-    from clive2_tpu.apps.render import main
+    from clive2.apps.render import main
 
     out = str(tmp_path / "out")
     ck = str(tmp_path / "ck.npz")
@@ -33,7 +31,7 @@ def test_render_cli(tmp_path):
 
 
 def test_movie_cli(tmp_path):
-    from clive2_tpu.apps.movie import main
+    from clive2.apps.movie import main
 
     out = str(tmp_path)
     main([
@@ -43,13 +41,12 @@ def test_movie_cli(tmp_path):
     ])
     frames = sorted(glob.glob(os.path.join(out, "m", "*.png")))
     assert len(frames) == 3
-    a = np.asarray(__import__("PIL.Image", fromlist=["Image"]).open(frames[0]))
-    b = np.asarray(__import__("PIL.Image", fromlist=["Image"]).open(frames[1]))
-    assert not np.array_equal(a, b)  # camera orbits
+    a, b = (open(f, "rb").read() for f in frames[:2])
+    assert a != b  # camera orbits
 
 
 def test_movie_frame_sharding(tmp_path):
-    from clive2_tpu.apps.movie import main
+    from clive2.apps.movie import main
 
     out = str(tmp_path)
     for offset in (0, 1):

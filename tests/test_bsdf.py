@@ -2,8 +2,8 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from clive2_tpu.ops import bsdf
-from clive2_tpu.ops.sampling import (
+from clive2.ops import bsdf
+from clive2.ops.sampling import (
     dot,
     ggx_sample,
     orthonormal,

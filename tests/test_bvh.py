@@ -1,10 +1,10 @@
 import numpy as np
 import pytest
 
-from clive2_tpu.bvh import build_bvh
-from clive2_tpu.bvh.build import leaf_tables
-from clive2_tpu.constants import MAX_MEMBERS
-from clive2_tpu.geometry import TriangleSoup, box_geometry
+from clive2.bvh import build_bvh
+from clive2.bvh.build import leaf_tables
+from clive2.constants import MAX_MEMBERS
+from clive2.geometry import TriangleSoup, box_geometry
 
 
 def random_soup(rng, n=200, spread=10.0):

@@ -1,6 +1,6 @@
 import numpy as np
 
-from clive2_tpu.camera import Camera, tone_map
+from clive2.camera import Camera, tone_map
 
 
 def test_camera_basis_orthonormal():
@@ -44,7 +44,7 @@ def test_tone_map_uniform_image_closed_form():
     #8): a uniform gray image has Lw = 0.1 + L (its own luma plus the
     log-bias), so the output is the closed-form 255*r/(r+1) with
     r = L*exposure/Lw, identical at every pixel."""
-    from clive2_tpu.camera import tone_map
+    from clive2.camera import tone_map
 
     L = 0.5
     img = np.full((8, 8, 3), L, dtype=np.float32)
@@ -61,7 +61,7 @@ def test_basic_tone_map_reference_quirk():
     (reference camera.py:85-86): equals 255/sqrt(x), so values BELOW 1
     brighten past 255 and wrap under uint8 conversion — parity, not
     sanity.  Pin the quirk so nobody 'fixes' it silently."""
-    from clive2_tpu.camera import basic_tone_map
+    from clive2.camera import basic_tone_map
 
     img = np.array([[[1.0, 4.0, 0.25]]], dtype=np.float32)
     out = basic_tone_map(img)

@@ -11,7 +11,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-import clive2_tpu as c2
+import clive2 as c2
 
 import pytest  # noqa: E402
 

@@ -2,8 +2,8 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from clive2_tpu.camera import Camera
-from clive2_tpu.ops.filters import filter_weights, finalize_samples
+from clive2.camera import Camera
+from clive2.ops.filters import filter_weights, finalize_samples
 
 
 def make_cam(w=8, h=6):

@@ -13,7 +13,7 @@ import os
 import jax
 import numpy as np
 
-import clive2_tpu as c2
+import clive2 as c2
 
 GOLDEN = os.path.join(os.path.dirname(__file__), "golden_cornell.npz")
 SIZE = 24

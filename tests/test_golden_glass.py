@@ -14,10 +14,10 @@ import os
 
 import numpy as np
 
-import clive2_tpu as c2
-from clive2_tpu.geometry import TriangleSoup
-from clive2_tpu.models import icosphere
-from clive2_tpu.scene import create_scene
+import clive2 as c2
+from clive2.geometry import TriangleSoup
+from clive2.models import icosphere
+from clive2.scene import create_scene
 import pytest
 
 pytestmark = pytest.mark.slow  # minutes-scale; default gate skips (-m slow)

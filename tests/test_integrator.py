@@ -2,8 +2,8 @@ import jax
 import numpy as np
 import pytest
 
-import clive2_tpu as c2
-from clive2_tpu.integrator.render import render_sample_jit
+import clive2 as c2
+from clive2.integrator.render import render_sample_jit
 
 
 @pytest.fixture(scope="module")

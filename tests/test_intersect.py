@@ -1,10 +1,10 @@
 import jax.numpy as jnp
 import numpy as np
 
-from clive2_tpu.bvh import build_bvh
-from clive2_tpu.bvh.build import leaf_tables
-from clive2_tpu.geometry import TriangleSoup, box_geometry
-from clive2_tpu.ops.intersect import (
+from clive2.bvh import build_bvh
+from clive2.bvh.build import leaf_tables
+from clive2.geometry import TriangleSoup, box_geometry
+from clive2.ops.intersect import (
     intersect_brute,
     intersect_bvh,
     moller_trumbore,
@@ -132,9 +132,9 @@ def test_cornell_box_hits_from_inside():
 
 def test_packed_walk_matches_oracle(rng):
     """The packed-row gather walk must match the unpacked oracle."""
-    from clive2_tpu.bvh import build_bvh
-    from clive2_tpu.bvh.build import leaf_tables
-    from clive2_tpu.ops.intersect import intersect_bvh_packed, pack_gather_walk
+    from clive2.bvh import build_bvh
+    from clive2.bvh.build import leaf_tables
+    from clive2.ops.intersect import intersect_bvh_packed, pack_gather_walk
 
     base = rng.uniform(-8, 8, size=(400, 1, 3))
     soup = TriangleSoup.from_vertices(

@@ -1,6 +1,6 @@
 import numpy as np
 
-from clive2_tpu.load import (
+from clive2.load import (
     load_obj,
     parse_obj,
     parse_ply,

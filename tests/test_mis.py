@@ -5,8 +5,8 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from clive2_tpu.integrator import connect as C
-from clive2_tpu.materials import default_materials
+from clive2.integrator import connect as C
+from clive2.materials import default_materials
 
 D = 6
 N = 257

@@ -3,13 +3,12 @@
 import numpy as np
 import pytest
 
-import clive2_tpu as c2
-from clive2_tpu.integrator.render import render_sample_jit
-from clive2_tpu.models import displaced_blob
-from clive2_tpu.load import soup_from_mesh
-from clive2_tpu.scene import orbit_camera
+import clive2 as c2
+from clive2.integrator.render import render_sample_jit
+from clive2.models import displaced_blob
+from clive2.load import soup_from_mesh
+from clive2.scene import orbit_camera
 
-pytestmark = pytest.mark.slow  # minutes-scale; default gate skips (-m slow)
 
 
 @pytest.fixture(scope="module")
@@ -87,16 +86,16 @@ def test_material_def_override():
     8-slot table and assigns it to that mesh (ROADMAP feature #7)."""
     import os
 
-    from clive2_tpu.materials import default_materials
-    from clive2_tpu.scene import RESOURCE_DIR, create_scene
+    from clive2.materials import default_materials
+    from clive2.scene import RESOURCE_DIR, create_scene
 
     teapot = os.path.join(RESOURCE_DIR, "teapot.obj")
     if not os.path.exists(teapot):
         # fresh checkout: resources/ is generated, not tracked — the
         # exact 32-patch teapot is cheap to emit here (make_assets.py
         # also builds the 1.3M-tri sponza, which is not)
-        from clive2_tpu.load import write_obj
-        from clive2_tpu.models import utah_teapot
+        from clive2.load import write_obj
+        from clive2.models import utah_teapot
 
         os.makedirs(RESOURCE_DIR, exist_ok=True)
         v, f = utah_teapot(n=10)

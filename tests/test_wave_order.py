@@ -9,15 +9,14 @@ tests are statistical (same converged image), plus exact determinism
 and machinery checks.
 """
 
-import os
 
 import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 
-import clive2_tpu as c2
-from clive2_tpu.integrator.render import (
+import clive2 as c2
+from clive2.integrator.render import (
     _morton_pixel_perm,
     _wave_order,
     render_sample,
@@ -65,21 +64,17 @@ class TestMortonPerm:
         assert spread_m < 8.0   # raster 16-lane span covers width 15
 
     def test_policy(self, scene, monkeypatch):
-        monkeypatch.delenv("CLIVE2_WAVE_ORDER", raising=False)
-        # brute-path scene: auto keeps raster
-        assert _wave_order(scene.data) == "raster"
-        # streaming scenes: auto goes morton
-        assert _wave_order({"stream": {}, "tri": {}}) == "morton"
-        # mid-size packet-kernel scenes: morton since the round-4
-        # hardware A/B (dragon 3.75 vs 3.62; deployed round 5)
-        assert _wave_order({"pallas": {}, "tri": {}}) == "morton"
-        assert _wave_order({"wide": {}, "tri": {}}) == "morton"
-        # sharded wavefronts follow the same policy (band-local variant)
-        assert _wave_order({"stream": {}}, mesh=object()) == "morton"
+        # auto is raster for every scene until a GPU measurement decides
+        for v in (None, "auto", "bogus"):
+            if v is None:
+                monkeypatch.delenv("CLIVE2_WAVE_ORDER", raising=False)
+            else:
+                monkeypatch.setenv("CLIVE2_WAVE_ORDER", v)
+            assert _wave_order() == "raster"
         monkeypatch.setenv("CLIVE2_WAVE_ORDER", "morton")
-        assert _wave_order(scene.data) == "morton"
+        assert _wave_order() == "morton"
         monkeypatch.setenv("CLIVE2_WAVE_ORDER", "raster")
-        assert _wave_order({"stream2": {}}) == "raster"
+        assert _wave_order() == "raster"
 
 
 class TestMortonRender:
@@ -129,7 +124,7 @@ class TestMortonSharded:
         """Each band's indices permute exactly that band (shard-local by
         construction), and band-0 of a 1-band perm equals the global
         Morton perm."""
-        from clive2_tpu.integrator.render import _banded_morton_perm
+        from clive2.integrator.render import _banded_morton_perm
 
         rows, width, bands = 16, 24, 8
         per = rows * width // bands
@@ -146,7 +141,7 @@ class TestMortonSharded:
         sharded raster run."""
         from jax.sharding import Mesh
 
-        from clive2_tpu.integrator.render import make_sharded_render
+        from clive2.integrator.render import make_sharded_render
 
         mesh = Mesh(np.array(jax.devices()), ("tiles",))
         k = jax.random.key(13)
