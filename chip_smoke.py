@@ -47,7 +47,8 @@ OUT = os.path.join(ROOT, "chiprun_out", "chip_smoke")
 MAX_ID_MISMATCH = 1e-4
 MAX_REL_DT = 1e-5
 MIN_OCCLUSION_AGREEMENT = 0.9999
-# 4-card vs 1-card frame.  The two are different compiled programs: XLA
+# 4-card vs 1-card frame (the phase also checks the sharded traversal on a
+# wavefront that does not divide by 4, which must match exactly).  The two are different compiled programs: XLA
 # fuses (and contracts multiply-adds) differently around the sharded
 # wavefront, and the splat scatter-add and its all-reduce sum in another
 # order.  Last-bit differences in a ray are amplified by the glass
@@ -215,7 +216,8 @@ def phase_traversal(s):
 
     import clive2 as c2
     from clive2.ops.intersect import (
-        forced_traversal, intersect_bvh, traverse_bvh, unpack_gather_walk)
+        intersect_bvh, intersect_bvh_packed, traverse_bvh, unpack_gather_walk)
+    from clive2.ops.walk_kernel import intersect_bvh_kernel
 
     bad = []
     for name in ("dragon", "big-dragon"):
@@ -225,19 +227,17 @@ def phase_traversal(s):
         oracle_fn = jax.jit(intersect_bvh)
         oracle_bvh = unpack_gather_walk(bvh)
         kept = jax.jit(traverse_bvh, static_argnames="any_hit")
+        impls = {"kernel": intersect_bvh_kernel,
+                 "walk": jax.jit(intersect_bvh_packed)}
         for ray_set, o, d, act, tmax in _wavefronts(scene, 512, 512):
             ref = oracle_fn(o, d, oracle_bvh, active=act, t_max=tmax)
             got = compare_hits(ref, kept(o, d, bvh, act, tmax), act)
             got.update(compare_hits(ref, kept(o, d, bvh, act, tmax,
                                               any_hit=True), act,
                                     any_hit=True))
-            times = {}
-            for impl in ("kernel", "walk"):
-                with forced_traversal(impl):      # a fresh closure each
-                    fn = jax.jit(lambda *a: traverse_bvh(*a)).lower(
-                        o, d, bvh, act, tmax).compile()
-                t = _time(fn, (o, d, bvh, act, tmax))
-                times[f"{impl}_mrays_s"] = int(act.sum()) / t / 1e6
+            times = {f"{impl}_mrays_s": int(act.sum()) / _time(
+                fn, (o, d, bvh, act, tmax)) / 1e6
+                for impl, fn in impls.items()}
             s.say("traversal", scene=name, rays=ray_set,
                   active=int(act.sum()), **got, **times)
             if (got["id_mismatch"] > MAX_ID_MISMATCH
@@ -358,6 +358,40 @@ def phase_checkpoint(s, state):
                                    atol=1e-6)
 
 
+def _uneven_sharded_walk(s, scene, mesh, w=1281, h=721):
+    """The traversal over the 4-card mesh on a wavefront whose length does
+    not divide by 4 (w*h primary rays) against the one-card kernel.  The
+    sharded walk pads with inactive rays, and rays are independent, so the
+    answers must be the same bit for bit."""
+    import jax
+    import numpy as np
+
+    from clive2.integrator import trace as T
+    from clive2.ops.intersect import traverse_bvh
+    from clive2.ops.walk_kernel import intersect_bvh_kernel
+
+    n = w * h
+    cam, _ = jax.jit(lambda k, c: T.generate_camera_rays(k, c, w, h))(
+        jax.random.key(5), scene.data["camera"])
+    o, d = cam["origin"], cam["direction"]
+    act = jax.random.uniform(jax.random.key(6), (n,)) < 0.9
+    tmax = jax.random.uniform(jax.random.key(7), (n,), minval=0.5,
+                              maxval=20.0)
+    bvh = scene.data["bvh"]
+    for any_hit in (False, True):
+        sharded = jax.jit(lambda o, d, b, a, t: traverse_bvh(
+            o, d, b, a, t, any_hit=any_hit, mesh=mesh))
+        got = sharded(o, d, bvh, act, tmax)
+        want = intersect_bvh_kernel(o, d, bvh, act, tmax, any_hit=any_hit)
+        differ = sum(int(np.sum(np.asarray(g) != np.asarray(x)))
+                     for g, x in zip(got, want))
+        s.say("four_cards_uneven_walk", rays=n, rays_mod_4=n % 4,
+              any_hit=any_hit, values_differ=differ)
+        if differ:
+            raise AssertionError(f"sharded walk on {n} rays differs from "
+                                 f"the one-card kernel in {differ} values")
+
+
 def phase_four_cards(s):
     import jax
     import numpy as np
@@ -402,6 +436,7 @@ def phase_four_cards(s):
             or max(means.values()) > FOUR_CARD_MEAN_RTOL
             or ray_rel > FOUR_CARD_RAYS_RTOL):
         raise AssertionError("4-card frame differs from the 1-card frame")
+    _uneven_sharded_walk(s, scene, make_tile_mesh(4))
 
 
 def main(argv=None) -> int:

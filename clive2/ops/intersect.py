@@ -15,8 +15,6 @@ most ``n_nodes`` iterations.
 
 from __future__ import annotations
 
-import contextlib
-import contextvars
 import functools
 
 import jax
@@ -168,30 +166,15 @@ def intersect_scene(origin, direction, scene, active=None, t_max=None,
     return hit
 
 
-_FORCED = contextvars.ContextVar("clive2_traversal", default=None)
-
-
-@contextlib.contextmanager
-def forced_traversal(name: str):
-    """Trace ``traverse_bvh`` as ``"walk"`` or ``"kernel"`` regardless of
-    the platform, for A/B timing.  The choice is made while tracing, and
-    JAX reuses a trace of the same function object: jit a fresh function
-    (a new closure) and lower and compile it inside the ``with`` block."""
-    if name not in ("walk", "kernel"):
-        raise ValueError(f"unknown traversal {name!r}")
-    token = _FORCED.set(name)
-    try:
-        yield
-    finally:
-        _FORCED.reset(token)
-
-
 def _tile_sharded(mesh, kernel_fn, bvh_arrays, any_hit):
     """``kernel_fn`` under shard_map: rays split over ``tiles``, tables
-    replicated; same call signature as the unsharded partial."""
+    replicated; same call signature as the unsharded partial.  A wavefront
+    whose length does not divide by the tile count is padded with inactive
+    rays and cut back after the walk."""
     from jax.sharding import PartitionSpec as P
 
     tiles, rep = P("tiles"), P()
+    n_tiles = mesh.shape["tiles"]
 
     def local(bvh, o, d, active, t_max):
         return kernel_fn(o, d, bvh, active=active, t_max=t_max,
@@ -202,8 +185,18 @@ def _tile_sharded(mesh, kernel_fn, bvh_arrays, any_hit):
         in_specs=(jax.tree.map(lambda _: rep, bvh_arrays),
                   tiles, tiles, tiles, tiles),
         out_specs=(tiles,) * 4, check_vma=False)
-    return lambda o, d, active, t_max: sharded(bvh_arrays, o, d, active,
-                                               t_max)
+
+    def call(o, d, active, t_max):
+        n = o.shape[0]
+        pad = -n % n_tiles
+        if pad:
+            o = jnp.pad(o, ((0, pad), (0, 0)))
+            d = jnp.pad(d, ((0, pad), (0, 0)), constant_values=1.0)
+            active = jnp.pad(active, (0, pad))
+            t_max = jnp.pad(t_max, (0, pad), constant_values=jnp.inf)
+        return tuple(x[:n] for x in sharded(bvh_arrays, o, d, active, t_max))
+
+    return call
 
 
 def traverse_bvh(origin, direction, bvh_arrays, active=None, t_max=None,
@@ -227,14 +220,9 @@ def traverse_bvh(origin, direction, bvh_arrays, active=None, t_max=None,
                              any_hit=any_hit)
     kernel = functools.partial(intersect_bvh_kernel, bvh_arrays=bvh_arrays,
                                any_hit=any_hit)
-    if mesh is not None and mesh.shape["tiles"] > 1 \
-            and n % mesh.shape["tiles"] == 0:
+    if mesh is not None and mesh.shape["tiles"] > 1:
         kernel = _tile_sharded(mesh, intersect_bvh_kernel, bvh_arrays,
                                any_hit)
-    forced = _FORCED.get()
-    if forced is not None:
-        impl = walk if forced == "walk" else kernel
-        return impl(origin, direction, active=active, t_max=t_max)
     return jax.lax.platform_dependent(
         origin, direction, active, t_max,
         cuda=lambda o, d, a, t: kernel(o, d, active=a, t_max=t),

@@ -177,6 +177,10 @@ def _make_step_chunked(width: int, height: int, chunk_rows: int,
 # 7.39 GB of temporaries, 3.6 KB per pixel
 SAMPLE_BYTES_PER_PIXEL = 4 * 1024
 
+# ray counts the Renderer keeps as device scalars before it sums the older
+# half on the host (a Python int: a long render passes 2**31 rays)
+RAY_COUNTS_KEPT = 256
+
 
 def _auto_chunk_rows(width: int, height: int, limit_bytes=None):
     """Row-stripe height for frames whose one-program sample would not fit
@@ -215,7 +219,8 @@ class Renderer:
         self.mesh = mesh
         self.key = jax.random.key(seed)
         self.samples = 0
-        self._ray_counts = []     # per-program device scalars, summed lazily
+        self._ray_counts = []     # newest programs' ray counts, on device
+        self._rays_folded = 0     # older programs' ray counts, summed
         self.state = self._place(init_accumulators(self.width, self.height))
         if chunk_rows is None:
             chunk_rows = _auto_chunk_rows(self.width, self.height)
@@ -250,13 +255,13 @@ class Renderer:
         if self.chunk_rows is None:
             self.state, n_rays = self._step(self.key, idx, self.state,
                                             self.scene.data)
-            self._ray_counts.append(n_rays)
+            self._count_rays(n_rays)
         else:
             for row0 in range(0, self.height, self.chunk_rows):
                 self.state, n_rays = self._step(
                     self.key, idx, jnp.int32(row0), self.state,
                     self.scene.data)
-                self._ray_counts.append(n_rays)
+                self._count_rays(n_rays)
         self.samples += 1
 
     @timed
@@ -278,7 +283,7 @@ class Renderer:
                                        self.max_bounces)
             self.state, n_rays = step(self.key, jnp.uint32(self.samples),
                                       self.state, self.scene.data)
-            self._ray_counts.append(n_rays)
+            self._count_rays(n_rays)
             self.samples += 1
             return
 
@@ -293,7 +298,7 @@ class Renderer:
                                        self.max_bounces)
             sample = run(self.key, jnp.uint32(self.samples),
                          jnp.uint32(i), sel[b0:b0 + m], self.scene.data)
-            self._ray_counts.append(sample["n_rays"])
+            self._count_rays(sample["n_rays"])
             outs = sample if outs is None else jax.tree.map(
                 lambda a, b: a + b, outs, sample)
         # top_k indices are distinct, so batches touch disjoint pixels and
@@ -310,6 +315,17 @@ class Renderer:
         )
         self.samples += 1
 
+    def _count_rays(self, n_rays):
+        """Keep a program's ray count without waiting for the program: the
+        count stays a device scalar until RAY_COUNTS_KEPT have gathered,
+        then the older half (long finished) is summed on the host."""
+        self._ray_counts.append(n_rays)
+        if len(self._ray_counts) >= RAY_COUNTS_KEPT:
+            half = RAY_COUNTS_KEPT // 2
+            old, self._ray_counts = (self._ray_counts[:half],
+                                     self._ray_counts[half:])
+            self._rays_folded += sum(int(n) for n in jax.device_get(old))
+
     def block(self):
         jax.block_until_ready(self.state)
 
@@ -317,7 +333,8 @@ class Renderer:
     def rays_traced(self) -> int:
         """Rays cast by the samples this renderer has run (every
         traversal: subpath extensions plus connection casts)."""
-        return sum(int(n) for n in jax.device_get(self._ray_counts))
+        return self._rays_folded + sum(
+            int(n) for n in jax.device_get(self._ray_counts))
 
     # ---- images (reference renderer.py:293-316) ---------------------------
 
